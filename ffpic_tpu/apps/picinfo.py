@@ -16,6 +16,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     import ffpic_tpu
+    from ffpic_tpu import runtime
+    runtime.setup_compile_cache()
     rc = 0
     for path in args.files:
         try:

@@ -14,6 +14,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     import ffpic_tpu
+    from ffpic_tpu import runtime
+    runtime.setup_compile_cache()
     try:
         pic = ffpic_tpu.load(args.file)
     except (ValueError, OSError, NotImplementedError) as e:

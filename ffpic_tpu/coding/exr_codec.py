@@ -16,7 +16,7 @@ use: little-endian bytes, scanline-interleaved, channels sorted by
 name within each line.  PIZ/B44 internally reorder to channel-major
 planes exactly like the OpenEXR tmp buffers.
 
-TPU split: the wavelet, LUT, B44 block math and byte shuffles are
+Host/device split: the wavelet, LUT, B44 block math and byte shuffles are
 vectorized numpy (whole-block array ops); only the inherently serial
 Huffman bit loop is scalar (native C fast path in
 native/host_exr.c, Python fallback here).

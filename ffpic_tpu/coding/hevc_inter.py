@@ -7,7 +7,7 @@ runs inline during the CABAC syntax pass (coding/hevc_slice.py) and
 the resulting per-PU motion is emitted as InterOp entries whose
 motion compensation (formats/hevc_mc.py) batches freely afterwards:
 inter prediction reads only *reference* pictures, never the current
-one, which is the TPU-friendly seam (all MC for a picture is one
+one, which is the device-friendly seam (all MC for a picture is one
 gather+filter batch; only intra blocks need the host wavefront).
 
 The C reference parses inter syntax and discards it

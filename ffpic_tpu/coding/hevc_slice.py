@@ -1,6 +1,6 @@
 """HEVC slice segment decoding (ITU-T H.265 7.3.6 + 7.3.8 + 9.3):
 slice header, CTU loop, coding quadtree, intra CUs, transform tree and
-residual coding — the host CABAC pass of the TPU-native HEIF pipeline.
+residual coding — the host CABAC pass of the HEIF pipeline.
 
 Two-pass architecture (SURVEY.md §3.5 split point): this module is
 pass 1 — pure syntax, no pixels.  It emits an ordered op list

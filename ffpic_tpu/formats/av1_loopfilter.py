@@ -8,7 +8,7 @@ Staged implementation validated against dav1d's inloop_filters mask
 
 Correctness-first scalar formulation; the frame-level two-pass
 structure (all vertical edges of a plane, then all horizontal) is
-already the vectorization-friendly shape for the batched TPU path.
+already the vectorization-friendly shape for a batched device path.
 """
 
 from __future__ import annotations

@@ -7,7 +7,7 @@ half/float/uint channels (exr.c:128-144), the linear→sRGB transfer
 (exr.c:146-153) and both line orders.  A scanline/tiled encoder with
 every compression is provided (the reference has no EXR writer).
 
-TPU split: half-decode, transfer curve, channel packing and the block
+Host/device split: half-decode, transfer curve, channel packing and the block
 codecs' array math are vectorized (numpy here; jnp for batches) — the
 reference does all of it per-pixel in C.  Only the PIZ Huffman bit
 loop is serial (Python here; see coding/exr_codec.py)."""

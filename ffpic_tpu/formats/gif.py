@@ -5,7 +5,7 @@ graphic-control disposal/transparency and app/comment extensions
 (gif.c:63-271). Frames composite onto the logical screen the way a
 viewer would (the reference just queues raw frames).
 
-TPU note: palette expansion for batches runs on device via
+Device note: palette expansion for batches runs on device via
 ops.png_kernels-style gather; the per-frame path here composites on
 host since frames are small and sequential by design.
 """

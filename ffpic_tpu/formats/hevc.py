@@ -777,7 +777,7 @@ def _decode_slice_native(sps, pps, hdr, data: bytes, pic):
         pic.mark_edges_batch(luma[:, 1], luma[:, 2], luma[:, 3])
 
     # native recon end-to-end (prediction + residual add in C);
-    # FFPIC_HEVC_DEVICE=1 computes ALL residual transforms on the TPU
+    # FFPIC_HEVC_DEVICE=1 computes ALL residual transforms on the device
     # first (one batched launch per TU-size bucket, ops/hevc_kernels)
     # and C only adds them to the prediction wavefront
     import os as _os

@@ -2,7 +2,7 @@
 interpolation (8-tap luma quarter-pel, 4-tap chroma eighth-pel) and
 the weighted sample prediction process.
 
-TPU-first note: inter prediction reads only *reference* pictures, so
+Device note: inter prediction reads only *reference* pictures, so
 every InterOp of a picture is independent — the whole MC pass is a
 bounds-clipped gather + two small convolutions per PU and batches per
 (w, h, frac) bucket with no wavefront (unlike intra).  The host numpy

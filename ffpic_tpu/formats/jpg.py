@@ -1,4 +1,4 @@
-"""JPEG codec: host marker parse + entropy decode, TPU device pipeline.
+"""JPEG codec: host marker parse + entropy decode, device pipeline.
 
 Decode parity target: the C reference's JPG_load
 (format/jpg.c:771-855) — baseline SOF0, extended SOF1, progressive

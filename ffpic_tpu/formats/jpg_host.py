@@ -5,7 +5,7 @@ decoding with spectral selection + successive approximation, restart
 intervals, and interleaved/non-interleaved scans — the semantics of the
 reference's decode_data_unit/JPG_decode_scan (format/jpg.c:255-585) —
 but emitting whole-image planar coefficient tensors per component
-(blocks_y, blocks_x, 8, 8) for the TPU pipeline instead of decoding
+(blocks_y, blocks_x, 8, 8) for the device pipeline instead of decoding
 per-MCU to pixels.
 
 This module is the correctness oracle; the production path is the C

@@ -1,6 +1,6 @@
 """The decoded-picture container.
 
-TPU-native analog of the reference's ``struct pic``
+Analog of the reference's ``struct pic``
 (reference format/file.h:29-40): refcounting is replaced by Python GC;
 ``pixels`` is canonically an ``(H, W, 4)`` uint8 **RGBA** array that may
 live on device (jax.Array) so decoded batches feed models with no host

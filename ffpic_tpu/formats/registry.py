@@ -1,6 +1,6 @@
 """Codec registry: probe-by-content dispatch.
 
-TPU-native analog of the reference's TAILQ file registry
+Analog of the reference's TAILQ file registry
 (reference format/file.c:30-113): codecs register a probe over leading
 bytes plus load/info/encode callables; ``probe()`` walks registrants in
 registration order and returns the first match, exactly like

@@ -3,7 +3,7 @@
 Capability parity with the reference's format/webp.c VP8 path
 (control partition, segmentation, token partitions, dequant, Y2 WHT,
 4x4 IDCT, all 10 B-modes + 4 16x16/chroma modes, simple+normal loop
-filters). Architecture differs TPU-first:
+filters). Architecture differs, device-first:
 
 * header/mode parse: Python bool decoder (small, host).
 * token partitions -> raw coefficient LEVELS tensor (mby, mbx, 25, 16)
@@ -416,7 +416,7 @@ class VP8Decoder:
     def _residuals(self):
         """Batched: dequant -> Y2 IWHT -> DC scatter -> 4x4 IDCT for the
         whole image (prediction-independent).  FFPIC_VP8_DEVICE=1 runs
-        it as one jitted TPU launch (ops/vp8_kernels — the reference's
+        it as one jitted device launch (ops/vp8_kernels — the reference's
         accel-layer equivalent, sse2.c:49-182); default is the numpy
         golden path (no per-geometry compile cost on CPU runs)."""
         import os

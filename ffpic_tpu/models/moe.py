@@ -1,7 +1,7 @@
 """Mixture-of-experts transformer block with expert- and
 sequence-parallel shardings — the ep/sp axes of the multi-chip story
 (SURVEY.md §2.6; the reference is single-process, so every axis here
-is beyond-reference TPU surface).
+is beyond-reference multi-device surface).
 
 Mesh axes used: ``data`` (batch), ``seq`` (sequence parallelism:
 activations between blocks live sharded over tokens — XLA inserts the

@@ -11,6 +11,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import subprocess
 
 import numpy as np
@@ -21,24 +22,46 @@ _lib = None
 _tried = False
 
 
+def _cpu_id() -> str:
+    """What -march=native compiles for: the host CPU's model and
+    feature flags (one copy of each distinct /proc/cpuinfo line)."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            lines = f.read().splitlines()
+    except OSError:
+        return platform.machine() + " " + platform.processor()
+    keys = ("model name", "flags", "Features", "CPU implementer",
+            "CPU part")
+    return "\n".join(sorted({ln for ln in lines if ln.startswith(keys)}))
+
+
+def _so_path(srcs: list[str], flags: list[str], cpu: str) -> str:
+    """Cached library path, keyed by the sources, the compiler command
+    and the host CPU, so a library built on another machine (a copied
+    build/ directory) is never loaded here."""
+    h = hashlib.sha256()
+    for s in srcs:
+        with open(s, "rb") as f:
+            h.update(f.read())
+    h.update("\0".join(flags).encode())
+    h.update(cpu.encode())
+    return os.path.join(_DIR, "build",
+                        f"libffpic_host_{h.hexdigest()[:16]}.so")
+
+
 def _build() -> str | None:
     srcs = [os.path.join(_DIR, s) for s in _SOURCES
             if os.path.exists(os.path.join(_DIR, s))]
     if not srcs:
         return None
-    h = hashlib.sha256()
-    for s in srcs:
-        with open(s, "rb") as f:
-            h.update(f.read())
-    tag = h.hexdigest()[:16]
-    cache_dir = os.path.join(_DIR, "build")
-    os.makedirs(cache_dir, exist_ok=True)
-    so = os.path.join(cache_dir, f"libffpic_host_{tag}.so")
+    cc = os.environ.get("CC", "cc")
+    flags = [cc, "-O3", "-march=native", "-fPIC", "-shared",
+             "-fvisibility=hidden"]
+    so = _so_path(srcs, flags, _cpu_id())
     if os.path.exists(so):
         return so
-    cc = os.environ.get("CC", "cc")
-    cmd = [cc, "-O3", "-march=native", "-fPIC", "-shared",
-           "-fvisibility=hidden", "-o", so] + srcs
+    os.makedirs(os.path.dirname(so), exist_ok=True)
+    cmd = flags + ["-o", so] + srcs
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
     except (subprocess.CalledProcessError, FileNotFoundError,
@@ -277,7 +300,7 @@ def png_unfilter(raw: np.ndarray, height: int, stride: int,
 
 def pack_nonzero(plane: np.ndarray):
     """Pack nonzero coefficients of an int16 array into
-    (flat_idx int32[], val int16[]) — cuts host->HBM bytes ~3x for
+    (flat_idx int32[], val int16[]) — cuts host->device bytes ~3x for
     typical baseline scans (85-90% zeros).  Returns (idx, val)."""
     lib = _load()
     assert lib is not None

@@ -2024,7 +2024,7 @@ FFPIC_API int ffpic_hevc_recon(
 
 /* recon with optional PRECOMPUTED residuals (int16, packed per TU in
  * the same layout as `levels`) — the device TU-bucket path
- * (ops/hevc_kernels) computes them in batched MXU launches and this
+ * (ops/hevc_kernels) computes them in batched matmul launches and this
  * entry just adds them to the prediction. */
 FFPIC_API int ffpic_hevc_recon2(
     int32_t *Y, int32_t *U, int32_t *V,

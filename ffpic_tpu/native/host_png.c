@@ -4,7 +4,7 @@
  * format/png.c:106-168) form byte-serial recurrences: Sub/Average/
  * Paeth depend on the reconstructed left neighbor through nonlinear
  * (floor-average / predictor-select) functions, so they belong on the
- * host next to inflate, not on the TPU — the device handles the dense
+ * host next to inflate, not on the device — the device handles the dense
  * per-pixel work (palette gather, bit expansion, format conversion) in
  * ffpic_tpu/ops/png_kernels.py. Single pass, in place, ~GB/s.
  *

@@ -3,7 +3,7 @@
 These mirror the C reference's integer semantics exactly — including
 int32 wraparound, int16 intermediate storage, arithmetic shifts, and
 float-to-int truncation — and serve as the differential-test oracle for
-the jnp/Pallas device kernels (the pattern of the reference's
+the jnp device kernels (the pattern of the reference's
 tests/test_dct.c:182-207 C-vs-SIMD equivalence tests).
 
 Sources mirrored:

@@ -1,8 +1,8 @@
-"""Device (TPU) kernels for the VP8 dense math: batched dequant ->
+"""Device kernels for the VP8 dense math: batched dequant ->
 Y2 IWHT -> DC scatter -> 4x4 IDCT over the whole-image block grid,
 plus the libwebp fixed-point YUV->RGB with fancy upsampling.
 
-The TPU-native equivalent of the reference's accel layer for VP8
+The device equivalent of the reference's accel layer for VP8
 (arch/x86/sse2.c:49-182 two-blocks-per-call SIMD IDCT, dispatched at
 format/webp.c:1136,1173): one jitted launch covers every block of the
 frame.  Bit-exact vs the numpy golden models (ops/golden.py), which

@@ -18,7 +18,7 @@ validated bit-exact against the host reconstruction
 This exists as a MEASURED EXPERIMENT (PARITY.md "vp8 wavefront"):
 the wavefront is ~95 sequential scan steps for a 512x512 frame,
 each step a handful of 4x4/16x16 vector ops over <=32 lanes —
-far below MXU/VPU utilization; the B_PRED inner dependency chain
+far below what the device's vector units can fill; the B_PRED inner dependency chain
 adds 16 more sequential stages inside each step.  The numbers (see
 PARITY) quantify why the production default keeps intra recon on
 the host: the wavefront's critical path is ~1500 dependent tiny

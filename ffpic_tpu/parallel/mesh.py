@@ -1,7 +1,7 @@
 """Multi-chip scaling: plain JAX data parallelism over a device mesh.
 
 The reference is single-process/single-thread (SURVEY.md §2.6); the
-TPU-native parallelism set replacing it is:
+parallelism set replacing it is:
   (a) batch data-parallelism across images → one block grid per launch,
   (b) block-grid parallelism inside kernels,
   (c) multi-chip = shard the image batch over the ``data`` mesh axis

@@ -13,6 +13,7 @@ import time
 from collections import defaultdict
 
 _stats: dict[str, list[float]] = defaultdict(list)
+_counts: dict[str, int] = defaultdict(int)
 _enabled = False
 
 
@@ -32,6 +33,17 @@ def stage(name: str):
         yield
     finally:
         _stats[name].append(time.perf_counter() - t0)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add n to a named counter (which path a batch took, how many
+    images went to the device)."""
+    if _enabled:
+        _counts[name] += n
+
+
+def counts() -> dict:
+    return dict(_counts)
 
 
 @contextlib.contextmanager
@@ -60,3 +72,4 @@ def report() -> dict:
 
 def reset() -> None:
     _stats.clear()
+    _counts.clear()

@@ -1,6 +1,6 @@
 """Named-module logging registry.
 
-The TPU-native equivalent of the reference's DPDK-style vlog registry
+The equivalent of the reference's DPDK-style vlog registry
 (reference utils/vlog.h:27-103): per-module named loggers with
 independently settable levels, a global default picked up from the
 ``FFPIC_LOG`` environment variable (e.g. ``FFPIC_LOG=debug`` or

@@ -12,3 +12,16 @@ def test_native_extension_available():
         "native C extension failed to build/load; run "
         "`cc -O3 -march=native -fPIC -shared ffpic_tpu/native/*.c` "
         "to see the compile error")
+
+
+def test_native_cache_key_covers_flags_and_cpu():
+    """A library built with other flags or on another CPU (a copied
+    build/ directory) must not be found under this machine's key."""
+    import os
+    from ffpic_tpu import native
+    srcs = [os.path.join(native._DIR, s) for s in native._SOURCES]
+    flags = ["cc", "-O3", "-march=native"]
+    base = native._so_path(srcs, flags, "cpu A")
+    assert base == native._so_path(srcs, flags, "cpu A")
+    assert base != native._so_path(srcs, flags, "cpu B")
+    assert base != native._so_path(srcs, flags + ["-g"], "cpu A")

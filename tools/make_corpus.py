@@ -14,22 +14,10 @@ import sys
 import numpy as np
 from PIL import Image
 
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+from ffpic_tpu.utils.synth import synth_rgb  # noqa: E402
+
 OUT = os.path.join(os.path.dirname(__file__), "..", "corpus")
-
-
-def synth_rgb(h, w, seed=0):
-    rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
-    img = np.stack([
-        128 + 100 * np.sin(xx / 37.0) * np.cos(yy / 23.0),
-        128 + 80 * np.cos(xx / 11.0 + yy / 41.0),
-        128 + 110 * np.sin((xx + yy) / 53.0),
-    ], axis=-1)
-    img += rng.normal(0, 12, size=img.shape)  # sensor-ish noise
-    # hard edges
-    img[h // 3:h // 3 + max(4, h // 40), :, :] = 240
-    img[:, w // 2:w // 2 + max(4, w // 40), :] = 16
-    return np.clip(img, 0, 255).astype(np.uint8)
 
 
 def save_jpeg(arr, path, quality=85, subsampling="4:2:0", progressive=False,
